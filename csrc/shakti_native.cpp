@@ -1,4 +1,4 @@
-// shakti_native: host-side mesh/runtime engine for the TPU framework.
+// shakti_native: host-side mesh/runtime engine for the JAX framework.
 //
 // Native re-provision of the host-side machinery the reference gets from
 // C/C++ dependencies (SURVEY §2b): the mesh partitioner (ParMETIS inside

@@ -5,9 +5,8 @@ height (reference setups/setup_cooke2.py:66) — every run samples one draw
 and reports a single trajectory.  Here the draw becomes a controlled
 ensemble axis (parallel/ensemble.py): `vmap` turns the whole Newton–Krylov
 timestep into a batched integrator, so M perturbed members integrate in
-ONE XLA program on one chip (measured on TPU at reference scale: 16
-members cost ~4.4 ms/member-step vs 7.0 solo — launch overhead amortizes
-across the batch; scripts/ensemble_bench.json).
+ONE XLA program on one device, amortizing per-kernel launch overhead
+across the batch (scripts/ensemble_bench.py measures the throughput).
 
 This demo integrates a slab transient under M perturbed b-ICs and prints
 the ensemble spread of the outlet effective pressure — the uncertainty the

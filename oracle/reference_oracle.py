@@ -4,7 +4,7 @@ Purpose (VERDICT round-1 item 2): an implementation of the reference weak
 form (reference source/solvers.py:45) that shares NO code with
 ``shakti_tpu.physics.residual`` / ``shakti_tpu.solve`` — hand-derived
 analytic element Jacobians, scipy sparse-LU Newton in float64, plain numpy
-assembly loops.  It exists to cross-validate the TPU framework against the
+assembly loops.  It exists to cross-validate the JAX framework against the
 discretization the reference's DOLFINx/PETSc stack solves:
 
   * ``interp_rule='avg'``       — cell-discontinuous quantities brought to

@@ -9,7 +9,7 @@ CPU twin when present):
   * final-state field maps N / b / |q| (cell 12's movie panels),
   * full-horizon f32-vs-f64 relative drift (when the twin is complete).
 
-    python scripts/cooke2_figures.py [tpu_results_dir] [f64_results_dir]
+    python scripts/cooke2_figures.py [results_dir] [f64_results_dir]
 
 Writes assets/figures/cooke2_*.png (small, committed artifacts).
 """
@@ -50,11 +50,21 @@ def _style(ax):
         ax.spines[s].set_visible(False)
 
 
-def fig_lake_level(out, t_yr, res32, res64, lake):
+def run_label(rdir):
+    """Legend label naming the device that produced ``rdir``
+    (api/run.py records it in run_meta.json)."""
+    import json
+
+    meta_p = os.path.join(rdir, "run_meta.json")
+    meta = json.load(open(meta_p)) if os.path.exists(meta_p) else {}
+    return f"f32 run ({meta.get('device_kind', meta.get('platform', '?'))})"
+
+
+def fig_lake_level(out, t_yr, res32, res64, lake, label):
     lvl = post.lake_level(res32["N"], lake)
     rate = post.filling_rate(res32["t"], res32["N"], lake) * YEAR
     fig, ax = plt.subplots(figsize=(6.4, 3.6))
-    ax.plot(t_yr, lvl, color=BLUE, lw=1.6, label="f32 TPU run")
+    ax.plot(t_yr, lvl, color=BLUE, lw=1.6, label=label)
     if res64 is not None:
         lvl64 = post.lake_level(res64["N"], lake)
         ax.plot(t_yr[:lvl64.size], lvl64, color=ORANGE, lw=1.4, ls="--",
@@ -70,13 +80,13 @@ def fig_lake_level(out, t_yr, res32, res64, lake):
     plt.close(fig)
 
 
-def fig_far_field(out, t_yr, res32, res64, far, N_bdry):
+def fig_far_field(out, t_yr, res32, res64, far, N_bdry, label):
     m32 = res32["N"][:, far].mean(axis=1) / 1e6
     fig, ax = plt.subplots(figsize=(6.4, 3.6))
     ax.axhline(N_bdry / 1e6, color=MUTED, lw=1.0, ls=":")
     ax.text(t_yr[-1], N_bdry / 1e6, " outflow BC 0.37 MPa", fontsize=8,
             color=MUTED, va="bottom", ha="right")
-    ax.plot(t_yr, m32, color=BLUE, lw=1.6, label="f32 TPU run")
+    ax.plot(t_yr, m32, color=BLUE, lw=1.6, label=label)
     if res64 is not None:
         m64 = res64["N"][:, far].mean(axis=1) / 1e6
         ax.plot(t_yr[:m64.size], m64, color=ORANGE, lw=1.4, ls="--",
@@ -158,9 +168,9 @@ def main(rdir="results/Cook_E2_370kpa",
     fdir = os.path.join(root, "assets", "figures")
     os.makedirs(fdir, exist_ok=True)
     fig_lake_level(os.path.join(fdir, "cooke2_lake_level.png"),
-                   t_yr, res32, res64, lake)
+                   t_yr, res32, res64, lake, run_label(rdir))
     fig_far_field(os.path.join(fdir, "cooke2_far_field.png"),
-                  t_yr, res32, res64, far, md.N_bdry)
+                  t_yr, res32, res64, far, md.N_bdry, run_label(rdir))
     fig_final_fields(os.path.join(fdir, "cooke2_final_fields.png"), md, res32)
     if res64 is not None and res64["N"].shape[0] >= 365:
         fig_drift(os.path.join(fdir, "cooke2_drift.png"), t_yr, res32, res64)

@@ -1,7 +1,8 @@
 """Direct steady state of the Cook_E2 flagship case (CPU f64).
 
 Cross-validates the PTC steady solver (solve/steady.py) against the
-committed 10-year transient artifact (COOKE2_RUN.md / cooke2_results.json):
+10-year transient artifact (COOKE2_RUN.md / cooke2_results.json, written
+by scripts/cooke2_report.py):
 the far-field metrics of the directly-computed equilibrium must match the
 transient's year-10 state (the far field equilibrates within ~the first
 year; reference notebooks/solution-plots.ipynb cell-13's check).  The lake

@@ -1,14 +1,14 @@
-"""10M-dof distributed execution on an 8-device mesh (VERDICT r1 item 3).
+"""10M-dof distributed execution on an 8-device virtual CPU mesh.
 
 Runs a few transient steps of a 10M-node problem through the node-sharded
-SPMD halo path (parallel/dist.py) on 8 devices — virtual CPU devices here
-(the only multi-device hardware available; the same program runs unchanged
-on a real TPU pod slice), with the working-set reductions that make 10M
-per-device-HBM-feasible: quadrature degree 2 (halves the per-cell
-precompute) and f32 state.
+SPMD halo path (parallel/dist.py) on 8 virtual CPU devices (the same
+program runs unchanged on several GPUs), with the working-set reductions
+that make 10M per-device-memory-feasible: quadrature degree 2 (halves
+the per-cell precompute) and f32 state.
 
-Records wall times, solver counters, the per-device compiled memory
-footprint (XLA memory_analysis), and the per-device payload bytes.
+Records CPU wall times (not device speed), solver counters, the
+per-device compiled memory footprint (XLA memory_analysis), and the
+per-device payload bytes.
 
     python scripts/dist_scale.py [--dof 10e6] [--devices 8] [--steps 2]
 """
@@ -43,9 +43,8 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     assert len(jax.devices()) >= args.devices, jax.devices()
     from shakti_tpu.utils.backend import enable_compile_cache
-    cc = enable_compile_cache()          # SHAKTI_COMPILE_CACHE opt-in
-    if cc:
-        print(f"# compilation cache: {cc}", file=sys.stderr, flush=True)
+    cc = enable_compile_cache()
+    print(f"# compilation cache: {cc}", file=sys.stderr, flush=True)
 
     from shakti_tpu.api.model import ModelSetup
     from shakti_tpu.mesh.generate import rectangle_mesh

@@ -17,10 +17,6 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from shakti_tpu.utils.backend import honor_platforms_env  # noqa: E402
-
-honor_platforms_env()
-
 
 def main():
     days = float(sys.argv[1]) if len(sys.argv) > 1 else 90.0

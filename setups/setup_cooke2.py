@@ -1,5 +1,5 @@
 """Cook_E2 subglacial-lake experiment: the reference's production case
-(reference setups/setup_cooke2.py) rebuilt on the TPU framework.
+(reference setups/setup_cooke2.py) rebuilt on the JAX framework.
 
 Follows the reference's recipe step for step: load the lake-catchment mesh,
 mask the lake from the outline inventory, interpolate bed (BedMachine),
@@ -43,7 +43,7 @@ def _synthetic_grids(bounds, lake_xy):
     gy = np.linspace(y0 - 0.1 * my, y1 + 0.1 * my, 500)
     X, Y = np.meshgrid(gx, gy)
     # depression depth/width: -60 m over 15 km gives a clear closed basin
-    # (potential low ~50 kPa) with a cold-start transient the f32 TPU
+    # (potential low ~50 kPa) with a cold-start transient the f32
     # solver certifies; the real BedMachine trough enters via the data path
     r2 = ((X - lake_xy[0]) ** 2 + (Y - lake_xy[1]) ** 2) / (15e3) ** 2
     bed = -400.0 + 0.004 * (X - x0) + 0.002 * (Y - y0) - 60.0 * np.exp(-r2)

@@ -1,19 +1,18 @@
-"""shakti_tpu: a TPU-native subglacial hydrology FEM framework.
+"""shakti_tpu: a JAX subglacial hydrology FEM framework.
 
 From-scratch JAX/XLA re-design with the capabilities of the SHAKTI
 reference implementation (agstub/shakti-fenics): P1 unstructured-triangle
 finite elements, matrix-free Newton-Krylov effective-pressure solves, fused
-explicit gap-height evolution, SPMD domain decomposition over TPU device
-meshes, and the surrounding runtime (setup/data adapters, IO, checkpointing,
-CLI).
+explicit gap-height evolution, SPMD domain decomposition over device
+meshes (GPUs, or virtual CPU devices in the tests), and the surrounding
+runtime (setup/data adapters, IO, checkpointing, CLI).
 
-Layer map (mirrors SURVEY.md §1 of the reference, re-provided TPU-first):
+Layer map (mirrors SURVEY.md §1 of the reference):
   mesh/      host-side meshing, partitioning, boundary topology; device Mesh
   fem/       P1 element core: quadrature, gather/scatter, averaging
   physics/   SHAKTI constitutive laws + weak-form residual (pure jnp)
   solve/     Newton + Krylov + scanned time loop (all one XLA program)
   parallel/  shard_map SPMD over jax device meshes
-  ops/       Pallas kernels for the hot gather/compute/scatter paths
   api/       model_setup-equivalent experiment API
   io/        results/history/checkpoint-resume
   data/      gridded-dataset adapters (bilinear interp, lake outlines)

@@ -1,4 +1,4 @@
-"""Experiment/model-state API: the TPU-native `model_setup` equivalent.
+"""Experiment/model-state API: the `model_setup` equivalent.
 
 Mirrors the reference's mutable setup object (reference model_setup.py:18-119)
 so that experiment modules port 1:1: construct, set fields/toggles/ICs, call
@@ -115,12 +115,12 @@ class ModelSetup:
         # ~46% of nodes start with b<0) at zero steady-state runtime cost;
         # the price is a ~2x larger compiled step (the retry branch traces
         # two half-dt sub-steps).  lag_operator stays None = auto (resolved
-        # at freeze: on for block-ELL/TPU meshes).  Large-scale runs that
+        # at freeze: on for block-ELL meshes).  Large-scale runs that
         # would rather fail fast can set md.solver = NewtonConfig()
         # explicitly.
         self.solver = NewtonConfig(adaptive_dt_levels=1)
-        # operator format: 'auto' = block-ELL (MXU SpMV) on TPU with RCB
-        # node reordering, scalar ELL elsewhere; or 'ell' / 'bell' / 'cells'
+        # operator format: 'auto' = scalar ELL on every backend; or 'ell' /
+        # 'bell' (block-ELL, RCB node reordering) / 'bcsr' (block-CSR)
         self.operator = "auto"
         # set by freeze(): solver-order -> user-order permutation (or None)
         self.node_iperm = None
@@ -204,23 +204,18 @@ class ModelSetup:
         """Build the immutable device-side problem:
         (mesh, static_fields, initial_state, newton_config).
 
-        On TPU ('auto') the nodes are renumbered by recursive coordinate
-        bisection and the operator is built in block-ELL form so Krylov
-        matvecs run on the MXU (fem/bell.py).  ``self.node_iperm`` is set to
-        the solver-order -> user-order permutation; the run layer uses it so
-        all outputs stay in the caller's original node order."""
+        The operator is built in the format ``self.operator`` names ('auto'
+        is scalar ELL).  The blocked formats ('bell', 'bcsr') renumber the
+        nodes by recursive coordinate bisection; ``self.node_iperm`` is then
+        the solver-order -> user-order permutation, which the run layer uses
+        so all outputs stay in the caller's original node order."""
         # timesteps are a run-layer concern (api/run.py validates them);
         # freezing only needs mesh/fields/BCs (steady solves have no
         # timesteps at all)
         self.validate(require_timesteps=False)
         op = self.operator
         if op == "auto":
-            if jax.default_backend() == "tpu":
-                # block-ELL through medium sizes; block-CSR beyond (padding
-                # waste and memory ceiling matter once vals >~ 1 GB)
-                op = "bell" if self.nodes.shape[0] <= 200_000 else "bcsr"
-            else:
-                op = "ell"
+            op = "ell"
         if getattr(self, "distributed", False):
             # distributed runs build their own per-shard operators
             # (parallel/dist.py); skip the global operator structures
@@ -245,7 +240,7 @@ class ModelSetup:
             self.node_iperm = None
         p = (lambda a: np.asarray(a)[perm]) if perm is not None else np.asarray
 
-        # block size for the blocked operators: full MXU tiles for block-ELL
+        # block size for the blocked operators: 128-wide tiles for block-ELL
         # (mid-size meshes); small blocks for block-CSR — at B=128 the dense
         # blocks hold ~7 real nonzeros per row, and XLA keeps 2-3 live
         # copies of the fold inside the Newton loop (observed OOM at 1M dof
@@ -299,8 +294,7 @@ class ModelSetup:
                 mesh = _dcm.replace(mesh, mg=plan)
         if cfg.lag_operator is None:
             # auto: carry the operator exactly in the block-ELL regime
-            # (single-chip TPU path; HBM-safe at <= 200k nodes and the
-            # measured 21% step-time win) — see NewtonConfig.lag_operator.
+            # (memory-safe at <= 200k nodes) — see NewtonConfig.lag_operator.
             # The carry holds a two-level coarse inverse, so it is
             # incompatible with the multilevel preconditioner.
             import dataclasses as _dc2

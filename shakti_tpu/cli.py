@@ -5,8 +5,10 @@
 The reference's contract (main.py:8-21): import the named module from a
 ``setups/`` directory, call ``initialize()`` to get a model object, then
 ``md.solve()``.  We keep that contract minus MPI: a single process drives
-all local TPU devices through jax; multi-host launches use jax.distributed
-(see shakti_tpu.parallel) under the same entry point.
+the local GPUs through jax (one device unless ``--dist``); multi-host
+launches use jax.distributed (see shakti_tpu.parallel) under the same
+entry point.  XLA executables persist in JAX's compilation cache
+(shakti_tpu.utils.backend), so repeat runs skip the large-mesh compiles.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ def load_setup(name: str):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="shakti_tpu",
-                                 description="TPU-native SHAKTI subglacial hydrology")
+                                 description="SHAKTI subglacial hydrology on GPUs (JAX/XLA)")
     ap.add_argument("setup", help="setup module name (in ./setups) or a .py path")
     ap.add_argument("--resume", action="store_true",
                     help="resume from the checkpoint in the results directory")
@@ -51,12 +53,7 @@ def main(argv=None):
     ap.add_argument("--multihost", action="store_true",
                     help="join a multi-host pod run via jax.distributed "
                          "(JAX_COORDINATOR_ADDRESS/JAX_NUM_PROCESSES/"
-                         "JAX_PROCESS_ID or Cloud TPU metadata); "
-                         "run one process per host")
-    ap.add_argument("--compile-cache", metavar="DIR", default=None,
-                    help="persistent XLA compilation cache directory "
-                         "(also via SHAKTI_COMPILE_CACHE); repeat runs "
-                         "skip the minutes-long large-mesh compiles")
+                         "JAX_PROCESS_ID); run one process per host")
     ap.add_argument("--steady", action="store_true",
                     help="solve directly for the steady state "
                          "(pseudo-transient continuation) instead of "
@@ -80,11 +77,9 @@ def main(argv=None):
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
 
-    from shakti_tpu.utils.backend import (enable_compile_cache,
-                                          honor_platforms_env)
-    honor_platforms_env()
-    cache_dir = enable_compile_cache(args.compile_cache)
-    if cache_dir and not args.quiet:
+    from shakti_tpu.utils.backend import enable_compile_cache
+    cache_dir = enable_compile_cache()
+    if not args.quiet:
         print(f"compilation cache: {cache_dir}")
 
     if args.multihost:

@@ -3,7 +3,7 @@
 Block-ELL (fem/bell.py) pads every block-row to the max block degree
 KB_max; on jittered meshes that wastes ~40% of the value storage and —
 since the SpMV is HBM-bandwidth-bound — ~40% of the matvec time, and it
-caps the single-chip problem size (vals = NB * KB_max * B^2 * 4 bytes).
+caps the single-device problem size (vals = NB * KB_max * B^2 * 4 bytes).
 
 Block-CSR stores only the nonzero blocks:
 
@@ -14,9 +14,9 @@ Block-CSR stores only the nonzero blocks:
   * element Jacobians fold in with one 2-D scatter-add addressed by
     (block id, within-block offset) int32 pairs — flat addressing would
     overflow int32 beyond ~3M nodes, and jax silently canonicalizes int64
-    indices to int32 when x64 is off (the production TPU configuration).
+    indices to int32 when x64 is off (the production configuration).
 
-Memory at 10M dof with B=16: ~5.8 GB of values — single-chip feasible,
+Memory at 10M dof with B=16: ~5.8 GB of values — single-device feasible,
 where block-ELL at B=128 would need ~80 GB.
 """
 
@@ -86,7 +86,7 @@ def bcsr_matvec(vals, brow, bcol, x, n_nodes: int, NB: int):
     nnzb, B, _ = vals.shape
     xpad = jnp.pad(x, (0, NB * B - n_nodes)).reshape(NB, B)
     xg = xpad[bcol]                               # (nnzb, B)
-    z = ein("kij,kj->ki", vals, xg)               # MXU batched matmul
+    z = ein("kij,kj->ki", vals, xg)               # batched block matmul
     y = jax.ops.segment_sum(z, brow, num_segments=NB,
                             indices_are_sorted=True)
     return y.reshape(-1)[:n_nodes]

@@ -1,24 +1,24 @@
 """Block-ELL (BSR-style) operator format: SpMV as batched dense matmuls.
 
-The TPU's weakness is per-element dynamic gathers: the scalar-ELL matvec
-(fem/ell.py) measures ~7 ns/element — 776 us per 12k-dof SpMV — because XLA
-serializes fine-grained gathers.  The TPU's strength is the MXU.  This module
-restructures the assembled operator so the Krylov matvec runs on the MXU:
+The scalar-ELL matvec (fem/ell.py) gathers one x entry per stored nonzero.
+This module restructures the assembled operator so the Krylov matvec
+gathers whole row-blocks of x and contracts them with dense blocks:
 
   * nodes are pre-ordered (RCB, see mesh layer) and chunked into blocks of
-    B=128 (one MXU tile);
+    B=128;
   * the sparse operator becomes dense BxB blocks in block-ELL layout:
     vals (NB, KB, B, B) with nbr (NB, KB) neighbor-block ids (pad = self,
     zero values);
   * matvec: gather KB neighbor x-blocks per row-block (row-granular gather,
-    512-byte rows — fast) and contract with one batched einsum on the MXU;
+    512-byte rows) and contract with one batched einsum;
   * element Jacobians fold into vals with ONE segment-sum per Newton
     iteration (host-precomputed flat slot mapping, like fem/ell.py).
 
-Cost model at 12k dof: vals ~50 MB -> HBM-bandwidth-bound matvec ~65 us,
-vs 776 us scalar-ELL and ~1 ms scatter-based.  At 10M dof the same layout
-streams ~40 GB per matvec, still bandwidth-bound — which is speed-of-light
-for an assembled-operator SpMV.
+Cost model: at 12k dof vals are ~50 MB, mostly zero padding inside the
+dense blocks, so the matvec streams ~10x the bytes of scalar ELL; at 10M
+dof the same layout streams ~40 GB per matvec.  Either way it is bound by
+memory bandwidth.  Which format wins on a given device is a measurement
+(the chip smoke test times all three).
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ import jax.numpy as jnp
 
 from shakti_tpu.fem.ops import ein
 
-BLOCK = 128  # MXU tile edge
+BLOCK = 128  # block edge
 
 
 def build_block_ell(cells: np.ndarray, n_nodes: int, B: int = BLOCK):
@@ -93,12 +93,12 @@ def bell_from_elements(J_c, slot_map, NB: int, KB: int, B: int = BLOCK,
 
 
 def bell_matvec(vals, nbr, x, n_nodes: int):
-    """y = A x: row-block gather + batched MXU contraction. No scatter."""
+    """y = A x: row-block gather + batched block contraction. No scatter."""
     NB, KB, B, _ = vals.shape
     xpad = jnp.pad(x, (0, NB * B - n_nodes))
     xb = xpad.reshape(NB, B)
     xg = xb[nbr]                                  # (NB, KB, B) row gather
-    y = ein("nkij,nkj->ni", vals, xg)             # MXU batched matmul
+    y = ein("nkij,nkj->ni", vals, xg)             # batched block matmul
     return y.reshape(-1)[:n_nodes]
 
 

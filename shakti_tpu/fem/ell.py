@@ -1,9 +1,9 @@
-"""ELL (padded row-sparse) operator format for scatter-free SpMV on TPU.
+"""ELL (padded row-sparse) operator format for scatter-free SpMV.
 
-Why this exists (SURVEY §7 hard part 4): XLA lowers scatter-adds on TPU to
-(effectively) serialized updates, so a Krylov loop whose matvec ends in a
-72k-index segment-sum is latency-bound — measured ~1 ms per CG iteration at
-12k dof.  Gathers, by contrast, vectorize well.  This module restructures
+Why this exists (SURVEY §7 hard part 4): a Krylov loop whose matvec ends in
+a 72k-index segment-sum pays a scatter-add every iteration (atomics on the
+GPU, serialized updates elsewhere).  Gathers, by contrast, vectorize well
+and fuse.  This module restructures
 the assembled-operator product so that
 
   * once per Newton iteration: element Jacobian blocks (c, 3, 3) are folded

@@ -8,7 +8,7 @@ binary by default under `Mesh.Binary=1`, and `gmshio.read_from_msh` accepts
 either, so a production mesh file must simply load.  Extracts 2-D triangle
 meshes: returns (nodes (n, 2) float64, cells (c, 3) int32) with nodes
 renumbered densely in file order.  Partitioning/distribution is NOT done
-here — the TPU build partitions explicitly (shakti_tpu.parallel.partition),
+here — this build partitions explicitly (shakti_tpu.parallel.partition),
 not inside the reader like DOLFINx does.
 """
 

@@ -179,18 +179,10 @@ def build_distributed(md, jmesh, axis: str = "x"):
     # Per-shard assembled-operator format on the local numbering (Krylov
     # matvecs become local gather/matmul work + one halo accumulate,
     # instead of cell gather + element matvec + scatter per iteration).
-    # Format mirrors the single-chip auto rule on TPU — block-ELL (MXU
-    # SpMV, fem/bell.py) through medium shard sizes, block-CSR beyond
-    # (fem/bcsr.py) — and stays scalar-ELL on hosts without an MXU, where
-    # the dense-block layouts only multiply memory (the CPU virtual-mesh
-    # regime; the 10M artifact runs there).  md.operator overrides.
+    # Format follows the single-device auto rule (scalar ELL);
+    # md.operator = 'bell' / 'bcsr' selects a blocked format.
     user_op = getattr(md, "operator", "auto")
-    if user_op in ("ell", "bell", "bcsr"):
-        op_l = user_op
-    elif jax.default_backend() == "tpu":
-        op_l = "bell" if L <= 200_000 else "bcsr"
-    else:
-        op_l = "ell"
+    op_l = user_op if user_op in ("ell", "bell", "bcsr") else "ell"
     op_payload, op_meta = _build_shard_operators(plan, op_l, Pn, L)
 
     payload = {
@@ -541,8 +533,8 @@ def make_distributed_runner(md, jmesh=None, axis: str = "x",
         # (4*wlen), so the host pulls a single (g, P*(4*omax+4*wlen))
         # array per GROUP instead of one full-global gather_state per
         # window.  At 10M dof the per-window gather is ~160 MB of
-        # device->host traffic per save — exactly the host chatter the
-        # single-device path eliminated in r3 (12.74 -> 6.40 ms/step).
+        # device->host traffic per save — the host chatter the
+        # single-device path's grouped runner also avoids.
         omax = int(plan["omax"])
 
         def body_g(*a):

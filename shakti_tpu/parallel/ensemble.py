@@ -1,7 +1,7 @@
 """Batched ensembles: vmap the timestep over perturbed model states.
 
 A parallel axis the reference does not have (SURVEY §2c notes it as the
-cheap TPU-native extension): the whole Newton-Krylov timestep is a pure
+cheap JAX-native extension): the whole Newton-Krylov timestep is a pure
 function, so `jax.vmap` turns it into an ensemble integrator — e.g. for
 uncertainty quantification over the stochastic initial gap height that the
 reference draws unseeded (setup_cooke2.py:66).  Composes with jit and with
@@ -34,8 +34,7 @@ def perturbed_ensemble(state: State, n_members: int, *, b_scale: float = 5e-4,
         # no lag carry: make_ensemble_step_fn forces lag_operator=False
         # (vmap lowers lax.cond to select — both branches execute — so the
         # lagged path would rebuild the operator every step AND pay the
-        # carry's memory M times; measured on TPU at 12k dof: lag-on
-        # vmap M=2 cost 26.2 ms/step vs 7.0 unvmapped)
+        # carry's memory M times)
         members.append(State(N=state.N, b=state.b + db, q=state.q,
                              melt=state.melt, N_prev=state.N_prev))
     return stack_states(members)

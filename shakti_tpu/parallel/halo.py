@@ -30,6 +30,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from shakti_tpu.fem.ops import vdot
+
 
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
@@ -105,7 +107,7 @@ class Halo:
     # ------------------------------------------------------------ reductions
     def dot(self, a, b):
         m = self.owned_mask.reshape((-1,) + (1,) * (a.ndim - 1))
-        local = jnp.vdot(a * m, b)
+        local = vdot(a * m, b)
         return jax.lax.psum(local, self.axis)
 
     def norm(self, a):

@@ -45,7 +45,7 @@ def rcb_order(points: np.ndarray, leaf: int = 32) -> np.ndarray:
     """Spatial ordering by recursive coordinate bisection: a permutation that
     makes spatially-close points contiguous.  Used to renumber mesh nodes so
     fixed-size node blocks (block-ELL operator, fem/bell.py) are compact —
-    compact blocks minimize the block-sparsity fill and hence the MXU SpMV's
+    compact blocks minimize the block-sparsity fill and hence the block SpMV's
     memory traffic."""
     points = np.asarray(points, dtype=np.float64)
     from shakti_tpu import native

@@ -1,8 +1,8 @@
 """SPMD domain decomposition over a jax device mesh via shard_map.
 
-TPU-native re-provision of the reference's single parallelism strategy —
+JAX re-provision of the reference's single parallelism strategy —
 spatial decomposition of the unstructured mesh over MPI ranks with ghost
-exchange (SURVEY §2c) — re-shaped for XLA/ICI:
+exchange (SURVEY §2c) — re-shaped for XLA collectives:
 
   * cells are partitioned by RCB (parallel/partition.py) and sharded over a
     1-D device mesh axis; each device assembles its own cells' element
@@ -34,22 +34,19 @@ import numpy as np
 from jax.sharding import Mesh as DeviceMesh
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-try:  # jax >= 0.5 new public location
-    from jax import shard_map as _shard_map
-    def shard_map(f, mesh, in_specs, out_specs, check_vma=True):
-        # check_vma=False is REQUIRED when reverse-mode differentiating a
-        # body that contains a custom_vjp (the IFT adjoint,
-        # solve/implicit.py): the varying-manual-axes tracker cannot type
-        # custom_vjp cotangents and silently drops them (zero gradients;
-        # reduced repro in tests/test_adjoint.py history).  The legacy
-        # untracked transpose routes them correctly.
-        return _shard_map(f, mesh=mesh, in_specs=in_specs,
-                          out_specs=out_specs, check_vma=check_vma)
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map as _shard_map_old
-    def shard_map(f, mesh, in_specs, out_specs, check_vma=True):
-        return _shard_map_old(f, mesh=mesh, in_specs=in_specs,
-                              out_specs=out_specs, check_rep=check_vma)
+from jax import shard_map as _shard_map
+
+
+def shard_map(f, mesh, in_specs, out_specs, check_vma=True):
+    # check_vma=False is REQUIRED when reverse-mode differentiating a
+    # body that contains a custom_vjp (the IFT adjoint,
+    # solve/implicit.py): the varying-manual-axes tracker cannot type
+    # custom_vjp cotangents and silently drops them (zero gradients;
+    # reduced repro in tests/test_adjoint.py history).  The untracked
+    # transpose routes them correctly.
+    return _shard_map(f, mesh=mesh, in_specs=in_specs,
+                      out_specs=out_specs, check_vma=check_vma)
+
 
 from shakti_tpu.mesh.mesh import Mesh
 from shakti_tpu.parallel.partition import pad_to_blocks, partition_cells

@@ -1,6 +1,6 @@
 """Physical constants for the SHAKTI subglacial hydrology model.
 
-TPU-native re-design of the reference's module-level globals
+JAX re-design of the reference's module-level globals
 (reference: source/params.py:4-11).  Instead of import-time globals we use a
 frozen, hashable dataclass so that parameter sets can be swapped per-experiment
 and passed as *static* arguments into jit-compiled functions (plain Python

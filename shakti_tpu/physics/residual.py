@@ -1,4 +1,4 @@
-r"""Weak-form residual of the effective-pressure equation, TPU-style.
+r"""Weak-form residual of the effective-pressure equation.
 
 This module replaces the reference's UFL weak form + FFCx-generated C
 assembly kernels + PETSc vector assembly (reference solvers.py:34-51) with a
@@ -64,7 +64,7 @@ class StepPre:
 def static_quad_fields(mesh, static, quad_degree: int, dtype):
     """Quadrature-point values of the time-independent forcing fields —
     computed once at model build, not per step (they were per-step gathers
-    in the first cut; TPU element-gathers are expensive enough to matter)."""
+    in the first cut; each element gather is a kernel of its own)."""
     phi_np, wq_np = quadrature(quad_degree)
     phi = jnp.asarray(phi_np, dtype=dtype)
     wq = jnp.asarray(wq_np, dtype=dtype)
@@ -85,8 +85,8 @@ def precompute_step(mesh, N_n, b, q, melt_n, static, dt, params: PhysicalParams,
     """Build the frozen per-step data (reference freezes these by passing the
     previous-step Functions into the form, solvers.py:28-45).
 
-    One fused corner gather covers all evolving scalar fields (TPU
-    element-gathers pay a large fixed cost; 4 gathers -> 1).
+    One fused corner gather covers all evolving scalar fields (each
+    gather pays a fixed launch cost; 4 gathers -> 1).
     """
     dtype = b.dtype
     if sq is None:
@@ -131,8 +131,8 @@ def corner_residual(N_c, pre: StepPre, mesh, params: PhysicalParams):
     """
     p = params
     # All contractions here are explicit broadcast-multiply-sums, NOT
-    # einsums: einsum lowers each to a TPU convolution kernel with
-    # transpose/copy traffic (see fem/ops.py note) — as plain f32
+    # einsums: each tiny einsum becomes its own dot kernel with
+    # transpose/copy traffic (see fem/ops.py note) — as plain
     # arithmetic the whole element residual fuses into a handful of
     # kernels, with identical-or-better accuracy.
     # mean-center before the gradient contraction (see fem/ops.cell_grad:
@@ -177,13 +177,12 @@ def corner_residual_multi(N_ck, pre: StepPre, mesh,
     """:func:`corner_residual` hand-batched over a trailing column axis:
     N_ck (c, 3, k) -> (c, 3, k).
 
-    NOT a vmap: on TPU at 1M dof the vmapped corner physics measured
-    359 ms for k=3 vs 105 ms for one column, while the batched gather /
-    accumulate building blocks cost the SAME as single-column (gathers
-    are ~7 ns per INDEX with payload columns riding along; scatter/
-    accumulate likewise — scripts/ROOFLINE_micro.json r5).  Trailing-dim
-    broadcasts keep every reduction's shape and order identical to the
-    single-column code per k-slice, so each column is bit-identical to
+    NOT a vmap: vmap over a small trailing batch inserts batch-boundary
+    transposes around the corner physics, while the batched gather /
+    accumulate building blocks carry extra payload columns at little
+    cost per index.  Trailing-dim broadcasts keep every reduction's shape
+    and order identical to the single-column code per k-slice, so each
+    column is bit-identical to
     :func:`corner_residual` (tests/test_fem.py)."""
     p = params
     N_dev = N_ck - jnp.mean(N_ck, axis=1, keepdims=True)        # (c, 3, k)
@@ -287,8 +286,8 @@ def fold_operator_values(J_c, mesh, out=None):
 
     ``out``: a DEAD values buffer of the same format to overwrite (the
     stale carry in the lag rebuild branch) — lets XLA alias it instead of
-    keeping carry + fresh values live simultaneously (the measured OOM at
-    1M dof, NewtonConfig.lag_operator scale caveat)."""
+    keeping carry + fresh values live simultaneously (NewtonConfig.lag_operator
+    scale caveat)."""
     # negate the SMALL element blocks (A = -J), not the folded values:
     # an outer negation of the big values array would allocate yet another
     # values-sized buffer in the out= reuse path
@@ -347,11 +346,9 @@ def operator_from_values(vals, mesh, dirichlet):
 
         return matvec
     if mesh.bell_nbr is not None:
-        import os
         from shakti_tpu.fem import bell as bellm
-        use_pallas = os.environ.get("SHAKTI_PALLAS_SPMV", "0") == "1"
         halo = mesh.halo
-        if halo is not None and halo.omax is not None and not use_pallas:
+        if halo is not None and halo.omax is not None:
             # comm/compute overlap: ghost block-rows first, so the return
             # all_to_all only waits on the small boundary piece
             NB, KB, B, _ = vals.shape
@@ -372,11 +369,7 @@ def operator_from_values(vals, mesh, dirichlet):
 
         def matvec(x):
             xf = jnp.where(dirichlet, 0.0, x)
-            if use_pallas:
-                from shakti_tpu.ops.spmv_pallas import bell_matvec_pallas
-                y = bell_matvec_pallas(vals, mesh.bell_nbr, xf, n)
-            else:
-                y = bellm.bell_matvec(vals, mesh.bell_nbr, xf, n)
+            y = bellm.bell_matvec(vals, mesh.bell_nbr, xf, n)
             if mesh.halo is not None:
                 y = mesh.halo.accumulate(y)
             return jnp.where(dirichlet, x, y)
@@ -411,8 +404,7 @@ def make_operator(J_c, mesh, dirichlet):
 
     Prefers the scatter-free ELL path (fem/ell.py) when the mesh carries ELL
     structure: the element blocks are folded into row storage once, so every
-    Krylov iteration is pure gather work — the TPU-critical optimization
-    (XLA scatters serialize; measured ~10x SpMV speedup at 12k dof).
+    Krylov iteration is pure gather work with no scatter-add.
     Shard-local meshes (parallel/shard.py) fall back to the cell-based
     matvec + psum path.
     """

@@ -18,6 +18,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
+from shakti_tpu.fem.ops import vdot
+
 
 def pcg(matvec, b, minv=None, x0=None, *, rtol=1e-8, atol=0.0, maxiter=1000,
         dot=None, norm=None):
@@ -31,7 +33,7 @@ def pcg(matvec, b, minv=None, x0=None, *, rtol=1e-8, atol=0.0, maxiter=1000,
     # ``minv`` may be a diagonal (vector) or a callable preconditioner apply
     apply_pc = minv if callable(minv) else (
         (lambda r: r) if minv is None else (lambda r: minv * r))
-    dot = dot or jnp.vdot
+    dot = dot or vdot
     norm = norm or jnp.linalg.norm
 
     bnorm = norm(b)
@@ -71,7 +73,7 @@ def bicgstab(matvec, b, minv=None, x0=None, *, rtol=1e-8, atol=0.0,
         x0 = jnp.zeros_like(b)
     apply_pc = minv if callable(minv) else (
         (lambda r: r) if minv is None else (lambda r: minv * r))
-    dot = dot or jnp.vdot
+    dot = dot or vdot
     norm = norm or jnp.linalg.norm
 
     bnorm = norm(b)

@@ -347,8 +347,8 @@ def _block_jacobi_inv(J6, mesh, masks, fix_b, rb_scale, dtype,
         jnp.stack([-D[:, 1, 0], D[:, 0, 0]], axis=-1)], axis=1) / safe[:, None, None]
 
     def apply_pc(r):
-        # broadcast-sum, not einsum (fem/ops note: einsum lowers to TPU
-        # convolution kernels with transpose/copy traffic)
+        # broadcast-sum, not einsum (fem/ops note: each tiny einsum is its
+        # own dot kernel with transpose/copy traffic)
         return jnp.sum(inv * r[:, None, :], axis=2)
 
     return apply_pc

@@ -7,8 +7,8 @@ solvers.py:51-54).  Here:
     transmissivity contrast (|b|^3 spans ~4 decades after clamping).
   * Two-level additive (Jacobi + coarse-grid correction) — handles the
     global/smooth error modes Jacobi cannot: nodes are aggregated into
-    contiguous blocks (the solver ordering is RCB-localized on TPU, so
-    blocks are spatially compact), the Galerkin coarse operator
+    contiguous blocks (under RCB-localized solver orderings the blocks
+    are spatially compact), the Galerkin coarse operator
     A_c = P^T A P for piecewise-constant P is assembled from the element
     Jacobians with one segment-sum, Cholesky-factored once per Newton
     iteration, and applied per Krylov iteration with reshape-sum /
@@ -58,9 +58,8 @@ def _regularized_inverse(A_c, m, dtype, tiny):
     dmean = jnp.mean(jnp.abs(jnp.diag(A_c))) + tiny
     A_c = A_c + (1e-8 * dmean) * jnp.eye(m, dtype=dtype)
     # precompute the dense inverse: the per-Krylov-iteration apply is then a
-    # single small matmul.  (cho_solve's triangular solves lower to many
-    # sequential ops on TPU — measured slower per apply than inv()'s one-off
-    # cost amortized over ~26 CG iterations.)
+    # single small matmul instead of two triangular solves per apply;
+    # inv()'s one-off cost is amortized over the CG iterations.
     return jnp.linalg.inv(A_c)
 
 
@@ -92,10 +91,10 @@ def coarse_from_values(vals, mesh, dirichlet, block: int = 64):
     agg J, and the fold (physics/residual.fold_operator_values) already
     accumulated A = -J into row storage (padding slots are zero by
     construction in all three formats, so including them adds nothing).
-    The element path's per-entry scatter serialized at ~7 ns/element on
-    TPU (196 ms at 1M dof, scripts/ROOFLINE.json r4); here the mask
-    contraction streams the values array contiguously and the scatter
-    shrinks to one entry per stored block (nnzb ~ 273k at 1M dof).
+    The element path scatters one entry per element-matrix entry; here
+    the mask contraction streams the values array contiguously and the
+    scatter shrinks to one entry per stored block (nnzb ~ 273k at 1M
+    dof).
 
     Bit-for-bit it differs from coarse_inverse only in float summation
     order (grouped per (row, col) entry before the aggregate sum)."""
@@ -138,8 +137,8 @@ def coarse_from_values(vals, mesh, dirichlet, block: int = 64):
         freep = jnp.pad(free, (0, NB * B - n)).reshape(NB, B)
         fr = freep[mesh.bcsr_brow]                           # (nnzb, B)
         fc = freep[mesh.bcsr_bcol]                           # (nnzb, B)
-        # broadcast-sum, NOT einsum: tiny einsums lower to TPU convolution
-        # kernels (CLAUDE.md r2 lesson)
+        # broadcast-sum, NOT einsum: each tiny einsum is its own dot
+        # kernel (fem/ops.py note)
         masked = vals * fr[:, :, None] * fc[:, None, :]
         A_c = block_tile(masked, mesh.bcsr_brow, mesh.bcsr_bcol, B)
     elif mesh.bell_nbr is not None:

@@ -116,6 +116,8 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 
+from shakti_tpu.fem.ops import vdot
+
 YEAR = 3.1536e7     # 365-day year [s], the default rate-reference time
 
 
@@ -188,7 +190,7 @@ def steady_solve(step_fn, state0, *, params, dt0=3600.0, dt_max=1e9,
         return mesh.halo.norm(x) if sharded else jnp.linalg.norm(x)
 
     def mdot(a, b):
-        return mesh.halo.dot(a, b) if sharded else jnp.vdot(a, b)
+        return mesh.halo.dot(a, b) if sharded else vdot(a, b)
 
     def rates(old, new, dt):
         rN = mnorm(new.N - old.N, act) / jnp.maximum(mnorm(old.N, act), tiny)

@@ -105,8 +105,8 @@ def make_step_fn(mesh, static: StaticFields, params: PhysicalParams,
 
     The explicit-update data movement is fused: all nodal->corner gathers
     are stacked into single gathers and the cell->node averages into single
-    segment-sums (TPU element-gathers/scatters pay a large fixed cost per
-    op, so op count — not element count — dominates this phase).
+    segment-sums (each gather/scatter kernel pays a fixed launch cost, so
+    at small meshes op count — not element count — dominates this phase).
 
     ``b_update``: gap-evolution scheme.  "explicit" (default) is the
     reference's forward Euler (solvers.py:162,192).  "semi_implicit"
@@ -320,11 +320,10 @@ def make_runner(params: PhysicalParams, cfg: NewtonConfig):
     """jit-compiled (mesh, static, state, forcing) -> (state, diags) with
     mesh/static as jit ARGUMENTS instead of closures.
 
-    Tradeoff (measured at 1M dof on TPU v5e): closures embed the mesh as
-    jaxpr constants, which XLA folds and optimizes aggressively — the step
-    fits in HBM and compiles fine; as runtime arguments the same program's
-    peak liveness GROWS (17.1 GB vs <15.75 GB: constants are deduped/folded
-    where inputs are not).  The framework therefore uses closures by
+    Tradeoff: closures embed the mesh as jaxpr constants, which XLA folds
+    and optimizes aggressively; as runtime arguments the same program's
+    peak liveness GROWS (constants are deduped/folded where inputs are
+    not).  The framework therefore uses closures by
     default (make_step_fn); this variant exists for workflows that swap
     meshes under one compilation and accept the memory cost.
     """

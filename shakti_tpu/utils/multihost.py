@@ -1,4 +1,4 @@
-"""Multi-host (pod) launch support.
+"""Multi-host launch support.
 
 The reference scales out with `mpirun -np N python main.py <setup>`
 (reference source/main.py + README): MPI ranks each own a mesh partition
@@ -9,17 +9,10 @@ runner (parallel/dist.py) then shards over ALL global devices exactly as
 it does over local ones — shard_map/psum/all_to_all are
 topology-agnostic.
 
-Launch on a pod slice (e.g. v5e-16, 4 hosts):
+Launch (one process per host, each seeing its local GPUs):
 
-    # on every host (GCE TPU VMs: use --worker=all):
-    python -m shakti_tpu setup_cooke2 --dist --multihost
-
-Coordinator/process-id discovery is automatic on Cloud TPU (metadata
-server); elsewhere set the standard variables:
-
-    JAX_COORDINATOR_ADDRESS=host0:8476
-    JAX_NUM_PROCESSES=4
-    JAX_PROCESS_ID=<0..3>
+    JAX_COORDINATOR_ADDRESS=host0:8476 JAX_NUM_PROCESSES=4 \
+    JAX_PROCESS_ID=<0..3> python -m shakti_tpu setup_cooke2 --dist --multihost
 
 IO note: the run layer (api/run.py) funnels all file IO through process 0
 (`is_primary`) — directory creation, history memmaps, log.csv, checkpoints
@@ -39,45 +32,30 @@ import os
 def init_multihost(coordinator: str | None = None,
                    num_processes: int | None = None,
                    process_id: int | None = None):
-    """Initialize jax.distributed (idempotent).
+    """Initialize jax.distributed.
 
     With explicit arguments (tests, bespoke launchers) they are passed
-    straight to ``jax.distributed.initialize``; otherwise coordinator and
-    process id come from the environment / Cloud TPU metadata.  Returns
-    (num_processes, process_id, is_primary).  Single-process callers (no
-    coordinator configured, not on Cloud TPU) get (1, 0, True) without
-    touching jax.distributed.
+    straight to ``jax.distributed.initialize``; otherwise they come from
+    ``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES`` and
+    ``JAX_PROCESS_ID``.  Returns (num_processes,
+    process_id, is_primary).  With no coordinator configured the caller
+    is single-process and gets (1, 0, True) without touching
+    jax.distributed.  A failed initialization raises: a launcher that was
+    asked for several processes must not carry on as one.
     """
     import jax
 
-    if coordinator is not None:
-        jax.distributed.initialize(coordinator_address=coordinator,
-                                   num_processes=num_processes,
-                                   process_id=process_id)
-        return (jax.process_count(), jax.process_index(),
-                jax.process_index() == 0)
-
-    coord = os.environ.get("JAX_COORDINATOR_ADDRESS")
-    on_cloud_tpu = os.path.exists("/dev/accel0") or bool(
-        os.environ.get("TPU_WORKER_HOSTNAMES"))
-    if coord or on_cloud_tpu:
-        # Cloud TPU pods discover coordinator/process-id from the metadata
-        # server with NO env vars set — that is the standard launch, so the
-        # gate must not require JAX_NUM_PROCESSES.  A single-host TPU VM
-        # (or a host with stale TPU_* vars) may fail discovery; degrade to
-        # the single-process view rather than crashing the launcher.
-        try:
-            jax.distributed.initialize()  # env/metadata-driven
-        except RuntimeError as e:
-            if "already initialized" not in str(e).lower():
-                import warnings
-                warnings.warn(
-                    f"jax.distributed.initialize() failed ({e}); "
-                    "continuing single-process")
-                return 1, 0, True
-        return (jax.process_count(), jax.process_index(),
-                jax.process_index() == 0)
-    return 1, 0, True
+    if coordinator is None:
+        coordinator = os.environ.get("JAX_COORDINATOR_ADDRESS")
+        if not coordinator:
+            return 1, 0, True
+        num_processes = int(os.environ["JAX_NUM_PROCESSES"])
+        process_id = int(os.environ["JAX_PROCESS_ID"])
+    jax.distributed.initialize(coordinator_address=coordinator,
+                               num_processes=num_processes,
+                               process_id=process_id)
+    return (jax.process_count(), jax.process_index(),
+            jax.process_index() == 0)
 
 
 def to_host(x):

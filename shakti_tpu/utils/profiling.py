@@ -23,7 +23,7 @@ class Timer:
     """with Timer() as t: ... ; t.ms — blocks on all outstanding work."""
 
     def __enter__(self):
-        jax.effects_barrier() if hasattr(jax, "effects_barrier") else None
+        jax.effects_barrier()
         self._t0 = time.perf_counter()
         return self
 

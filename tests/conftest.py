@@ -1,8 +1,8 @@
 """Test configuration: CPU backend with 8 virtual devices, float64.
 
 Multi-device behavior is exercised on a simulated 8-device CPU mesh
-(SURVEY §4 item 4) — the TPU-native replacement for the reference's
-"just run mpirun -np 8" verification strategy.
+(SURVEY §4 item 4) — the replacement for the reference's "just run
+mpirun -np 8" verification strategy.
 """
 
 import os
@@ -14,7 +14,6 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 
 import jax  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import sys  # noqa: E402

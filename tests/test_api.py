@@ -115,9 +115,10 @@ def test_in_memory_run_without_results_dir():
     assert out["history"]["N"].shape[0] == -(-md.timesteps.size // md.nt_save)
 
 
-def test_compile_cache_populated_and_run_unchanged(tmp_path):
-    """enable_compile_cache writes XLA executables to the given directory
-    and does not perturb results (utils/backend.py)."""
+def test_compile_cache_populated_and_run_unchanged(tmp_path, monkeypatch):
+    """enable_compile_cache writes XLA executables to the directory
+    JAX_COMPILATION_CACHE_DIR names and does not perturb results
+    (utils/backend.py)."""
     import jax
 
     from shakti_tpu.utils.backend import enable_compile_cache
@@ -125,7 +126,9 @@ def test_compile_cache_populated_and_run_unchanged(tmp_path):
     md = slab.initialize(nx=8, ny=8, days=0.5, nt_per_day=4)
     ref = solve(md, progress=False)
     cdir = str(tmp_path / "xla_cache")
-    got = enable_compile_cache(cdir)
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", cdir)
+    was = jax.config.jax_compilation_cache_dir
+    got = enable_compile_cache()
     try:
         assert got == cdir and os.path.isdir(cdir)
         # same problem again: results must be byte-identical with the
@@ -140,7 +143,7 @@ def test_compile_cache_populated_and_run_unchanged(tmp_path):
         solve(md3, progress=False)
         assert os.listdir(cdir), "no cache entries written"
     finally:
-        jax.config.update("jax_compilation_cache_dir", None)
+        jax.config.update("jax_compilation_cache_dir", was)
 
 
 def test_nonconvergence_raises():
@@ -302,11 +305,19 @@ def test_rolling_checkpoints_fire_on_misaligned_cadence(tmp_path, monkeypatch):
     assert [s for s, lag in calls if lag] == [20]
 
 
-def test_cli_steady_writes_artifacts(tmp_path, capsys):
+def test_cli_steady_writes_artifacts(tmp_path, capsys, monkeypatch, request):
     """CLI `--steady` end-to-end: a wrapper setup file through
     cli.main() must solve the steady state and write steady.npz +
     steady_info.json to <results_name>_steady/ (cli.py:89-113)."""
+    import jax
+
     from shakti_tpu.cli import main
+
+    # the CLI turns the persistent compile cache on: keep it in tmp_path
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "cache"))
+    was = jax.config.jax_compilation_cache_dir
+    request.addfinalizer(
+        lambda: jax.config.update("jax_compilation_cache_dir", was))
 
     wrapper = tmp_path / "wrap_steady.py"
     wrapper.write_text(

@@ -34,7 +34,7 @@ def test_ensemble_vmap_matches_member_runs():
 
 def test_ensemble_runs_under_lag_config():
     """The ensemble runner must work when the incoming config has
-    lag_operator on (the default TPU auto config): vmap lowers lax.cond to
+    lag_operator on (the block-ELL auto config): vmap lowers lax.cond to
     select (both branches execute), so make_ensemble_step_fn forces the
     plain path and members carry no lag tuple — previously the runner
     failed at trace time with a scan-carry pytree mismatch."""

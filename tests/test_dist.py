@@ -125,8 +125,8 @@ def test_distributed_run_matches_single_device(ndev):
 
 @pytest.mark.parametrize("fmt", ["bell", "bcsr"])
 def test_distributed_block_operator_matches_single_device(fmt):
-    """Per-shard block-ELL / block-CSR operators (the MXU SpMV formats,
-    VERDICT r2 item 3) must reproduce the single-device trajectory through
+    """Per-shard block-ELL / block-CSR operators (the dense-block SpMV
+    formats) must reproduce the single-device trajectory through
     the halo path: fold per shard, matvec + halo accumulate per iteration."""
     md = slab.initialize(nx=16, ny=16, days=2.0, nt_per_day=4)
     mesh, static, state, cfg0 = md.freeze()

@@ -1,9 +1,9 @@
 """Structural performance-regression guards.
 
-The bench is launch-bound: step time tracks the compiled program's kernel
-(fusion) count at ~0.02 ms/fusion in-scan on TPU (scripts/PROFILE_inscan.json),
-and peak HBM tracks the XLA temp allocation.  Both are properties of the
-compiled HLO, so they can be pinned on the CPU backend without TPU access —
+At the 12k bench size the step is launch-bound: step time tracks the
+compiled program's kernel (fusion) count, and peak device memory tracks
+the XLA temp allocation.  Both are properties of the compiled HLO, so they
+can be pinned on the CPU backend without the GPU —
 a regression of the kind found in r2 (each tiny einsum silently lowering to
 its own convolution kernel + transposes, CLAUDE.md performance record) trips
 these bounds long before anyone re-benches on hardware.
@@ -37,7 +37,7 @@ def _fusion_count(comp):
 
 
 def test_step_kernel_count_bell_lag():
-    # the production single-chip TPU configuration: block-ELL + lag carry
+    # the block-ELL + lag-carry configuration
     comp, cfg = _compile_window("bell")
     assert cfg.lag_operator            # auto rule picked the production mode
     n = _fusion_count(comp)

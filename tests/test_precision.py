@@ -1,4 +1,4 @@
-"""Precision regression guard: the float32 path (the production TPU mode)
+"""Precision regression guard: the float32 path (the production mode)
 must track float64 through a transient (SURVEY §7 hard part 1 — this is the
 framework's central numerical risk; ad-hoc studies measured ~1e-5–1e-4
 relative over hundreds of steps)."""

@@ -1,7 +1,7 @@
 """SHMIP suite A physical-structure checks (de Fleurian et al. 2018).
 
 Full steady-state profile comparison is a long-horizon (multi-year,
-sub-hourly) run better done on TPU; here we verify the robust early-time
+sub-hourly) run better done on the GPU; here we verify the robust early-time
 physics on a coarse mesh: convergence, boundary condition, and the
 monotone response of the water sheet to recharge over 4 decades of input.
 """

@@ -93,7 +93,7 @@ def test_lagged_operator_matches_plain_newton():
     inverse on iteration 0; the exact-residual convergence test makes it an
     inexact-Newton variant, so trajectories must agree to solver tolerance
     (measured 1.7e-10 over 30 steps; asserted with headroom).  Exercises the
-    block-ELL format the TPU path uses."""
+    block-ELL format."""
     import dataclasses
 
     from shakti_tpu.solve.newton import zero_lag
@@ -163,7 +163,7 @@ def test_lag_floor_probe_age_bounded(monkeypatch):
 
 def test_lag_operator_auto_resolution():
     """NewtonConfig.lag_operator=None resolves at freeze: True exactly for
-    block-ELL meshes (the TPU bell regime), False elsewhere; explicit
+    block-ELL meshes (the bell regime), False elsewhere; explicit
     settings pass through untouched."""
     import dataclasses
 
